@@ -1,8 +1,8 @@
-/* iht.h — public C API of the TPU-native ice-halo renderer.
+/* iht.h — public C API of the JAX ice-halo renderer.
  *
  * Mirrors the capability surface of the reference C API
  * (/root/reference/src/include/lumice.h: server lifecycle, scene commit,
- * result-frame acquisition, stats, validation helpers) in the TPU-native
+ * result-frame acquisition, stats, validation helpers) in this repository's
  * formulation: the compute path is the JAX engine, and this library embeds
  * the CPython runtime to drive it, exposing a plain C ABI so C/C++
  * front-ends (CLI, GUI, FFI bindings) need no Python linkage of their own.

@@ -1,10 +1,10 @@
-// c_api.cpp — C ABI over the TPU-native renderer (see include/iht.h).
+// c_api.cpp — C ABI over the JAX renderer (see include/iht.h).
 //
-// TPU-native counterpart of the reference's C API implementation
+// Counterpart of the reference's C API implementation
 // (/root/reference/src/server/c_api.cpp): opaque handles + error codes over
 // the server layer. The compute stack is the JAX engine; this translation
 // unit embeds (or joins) a CPython interpreter and drives
-// ice_halo_sim_tpu.engine.server.Server through the CPython C API.
+// ice_halo_sim_jax.engine.server.Server through the CPython C API.
 //
 // Interpreter ownership: if the process already hosts Python (the library
 // was dlopen'd from a Python process, e.g. via ctypes), we join it; when
@@ -95,7 +95,7 @@ PyObject* CallMethod(PyObject* obj, const char* name, PyObject* args) {
 // ---- handle types ----------------------------------------------------------
 
 struct IHT_Server {
-  PyObject* py_server;  // ice_halo_sim_tpu.engine.server.Server
+  PyObject* py_server;  // ice_halo_sim_jax.engine.server.Server
 };
 
 struct RenderImage {
@@ -132,9 +132,9 @@ IHT_Status IHT_CreateServer(IHT_Server** out, unsigned int seed,
   }
   *out = nullptr;
   Gil gil;
-  PyObject* mod = PyImport_ImportModule("ice_halo_sim_tpu.engine.server");
+  PyObject* mod = PyImport_ImportModule("ice_halo_sim_jax.engine.server");
   if (mod == nullptr) {
-    SetError("import ice_halo_sim_tpu.engine.server failed: " + FetchPyError());
+    SetError("import ice_halo_sim_jax.engine.server failed: " + FetchPyError());
     return IHT_ERR_RUNTIME;
   }
   PyObject* cls = PyObject_GetAttrString(mod, "Server");
@@ -728,7 +728,7 @@ extern "C" {
 IHT_Status IHT_SetLogLevel(const char* level) {
   if (level == nullptr) return IHT_ERR_INVALID_ARG;
   Gil gil;
-  PyObject* mod = PyImport_ImportModule("ice_halo_sim_tpu.utils.log");
+  PyObject* mod = PyImport_ImportModule("ice_halo_sim_jax.utils.log");
   if (mod == nullptr) {
     SetError(FetchPyError());
     return IHT_ERR_RUNTIME;
@@ -749,7 +749,7 @@ IHT_Status IHT_SetLogLevel(const char* level) {
 
 IHT_Status IHT_SetLogCallback(IHT_LogCallback cb, void* user) {
   Gil gil;
-  PyObject* mod = PyImport_ImportModule("ice_halo_sim_tpu.utils.log");
+  PyObject* mod = PyImport_ImportModule("ice_halo_sim_jax.utils.log");
   if (mod == nullptr) {
     SetError(FetchPyError());
     return IHT_ERR_RUNTIME;
@@ -783,7 +783,7 @@ IHT_Status IHT_GetCrystalMesh(const char* crystal_json, float* vertices,
                               int* out_n_triangles) {
   if (crystal_json == nullptr) return IHT_ERR_INVALID_ARG;
   Gil gil;
-  PyObject* mod = PyImport_ImportModule("ice_halo_sim_tpu.core.mesh");
+  PyObject* mod = PyImport_ImportModule("ice_halo_sim_jax.core.mesh");
   if (mod == nullptr) {
     SetError(FetchPyError());
     return IHT_ERR_RUNTIME;

@@ -1,6 +1,6 @@
 // scene_builder.cpp — C-side scene value building (see include/iht.h).
 //
-// TPU-native counterpart of the reference's LUMICE_Scene value builder
+// Counterpart of the reference's LUMICE_Scene value builder
 // (/root/reference/src/server/c_api.cpp scene-building surface): a C
 // front-end assembles a scene without touching JSON by hand (typed
 // conveniences) or with raw JSON fragments for full schema coverage. The

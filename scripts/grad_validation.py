@@ -43,7 +43,7 @@ def tilted_cfg():
     slab argmin-face reassignment boundary carries ~86-100% of the prism
     height gradient here (frozen-FD battery), so it is THE scene where a
     wrong boundary estimator cannot hide."""
-    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_jax.config.loader import load_project
 
     return load_project({
         "crystal": [
@@ -104,7 +104,7 @@ PARAMS = [
 
 
 def run_table(rays: int, batch: int) -> int:
-    from ice_halo_sim_tpu.engine.gradient import default_params, make_render_fn
+    from ice_halo_sim_jax.engine.gradient import default_params, make_render_fn
 
     cfg = tilted_cfg()
     params = default_params(cfg)
@@ -162,7 +162,7 @@ def run_demo(iters: int, batch: int) -> int:
     """Recover a perturbed prism height by gradient descent on a rendered
     target (Adam on the soft_tau estimator's gradient, fresh seed per
     step so Monte-Carlo noise averages out across iterations)."""
-    from ice_halo_sim_tpu.engine.gradient import default_params, make_render_fn
+    from ice_halo_sim_jax.engine.gradient import default_params, make_render_fn
 
     cfg = tilted_cfg()
     params = default_params(cfg)

@@ -1,4 +1,4 @@
-"""Reference-image parity battery (VERDICT r3 missing #1).
+"""Reference-image parity battery.
 
 The reference repo's committed e2e images are git-lfs pointers here (zero
 egress), so the TRUE oracle is the reference CLI itself, built offline by
@@ -10,7 +10,7 @@ from run-to-run variation minus margin).
 Emit floor: by default our engine runs with IHT_MIN_EMIT_W=0 so the
 comparison is against reference emission semantics; --floor default keeps
 the engine's own defaults (unbiased Russian-roulette floor) to prove the
-DEFAULT output passes the same floors (VERDICT r4 weak #4).
+DEFAULT output passes the same floors.
 
 Usage:
   python scripts/parity_ref.py [--scenes halo_22 cza ...] [--rays N]
@@ -93,9 +93,9 @@ def run_ours(scene: str, out_dir: str, rays=None, seed=1, batch=None) -> float:
     os.makedirs(out_dir, exist_ok=True)
     import jax
 
-    from ice_halo_sim_tpu.config.loader import load_project_file
-    from ice_halo_sim_tpu.engine.simulator import Engine
-    from ice_halo_sim_tpu.utils.png import write_png
+    from ice_halo_sim_jax.config.loader import load_project_file
+    from ice_halo_sim_jax.engine.simulator import Engine
+    from ice_halo_sim_jax.utils.png import write_png
 
     cfg = load_project_file(f"{CONFIG_DIR}/{scene}.json")
     total = int(rays if rays is not None else cfg.scene.ray_num)

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ice_halo_sim_tpu.core.accum import (
+from ice_halo_sim_jax.core.accum import (
     accumulate,
     scatter_accumulate,
     sort_accumulate,

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from ice_halo_sim_tpu.config.builder import SceneBuilder, gauss, prism, pyramid, uniform
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.config.serialize import project_to_dict
-from ice_halo_sim_tpu.engine.debug import dump_rays, format_rays
-from ice_halo_sim_tpu.engine.simulator import Engine
-from ice_halo_sim_tpu.utils import log
+from ice_halo_sim_jax.config.builder import SceneBuilder, gauss, prism, pyramid, uniform
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.config.serialize import project_to_dict
+from ice_halo_sim_jax.engine.debug import dump_rays, format_rays
+from ice_halo_sim_jax.engine.simulator import Engine
+from ice_halo_sim_jax.utils import log
 
 
 def _builder():

@@ -324,7 +324,7 @@ def test_log_level_and_callback(lib2):
     cb = CB(on_log)
     lib.IHT_SetLogCallback.argtypes = [CB, ctypes.c_void_p]
     assert lib.IHT_SetLogCallback(cb, None) == 0
-    from ice_halo_sim_tpu.utils.log import get_logger
+    from ice_halo_sim_jax.utils.log import get_logger
     get_logger("test").warning("hello from C callback test")
     assert any(b"hello from C callback test" in m for _, m in seen)
     # uninstall: must not fire afterwards

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.core import color
+from ice_halo_sim_jax.core import color
 
 
 def test_cmf_lookup_rounding_and_range():
@@ -87,3 +87,40 @@ def test_post_process_shapes_and_monotonic():
     # Background fills empty pixels.
     out3 = np.asarray(color.post_process(img, 1.0, 1.0, (0.25, 0.0, 0.0), (-1, -1, -1)))
     assert out3[0, 0, 0] > 0 and out3[0, 0, 1] == 0
+
+
+def test_cmf_eval_matches_table_at_segment_edges():
+    """cmf_eval gathers its Chebyshev segment by index; on the table's 1-nm
+    grid points on both sides of every segment edge the fit must match the
+    table to its documented residual (~1.5e-4 of peak)."""
+    from ice_halo_sim_jax.core import color
+
+    edges = np.linspace(color.CMF_WL_MIN, color.CMF_WL_MAX, color._CMF_NSEG + 1)
+    wl = np.unique(np.clip(np.concatenate(
+        [np.floor(edges) + d for d in (-1, 0, 1, 2)]),
+        color.CMF_WL_MIN, color.CMF_WL_MAX))
+    got = np.asarray(color.cmf_eval(jnp.asarray(wl, jnp.float32)))
+    want = np.asarray(color.cmf_lookup(jnp.asarray(wl, jnp.float32)))
+    assert np.abs(got - want).max() < 5e-4 * np.abs(want).max()
+    assert (got >= 0).all()
+
+
+def test_daylight_components_exact_at_table_nodes():
+    from ice_halo_sim_jax.core import color
+
+    n = color._DAYLIGHT_S.shape[1]
+    wl = color._DAYLIGHT_WL_MIN + color._DAYLIGHT_WL_STEP * np.arange(n)
+    got = np.asarray(color.daylight_components(jnp.asarray(wl, jnp.float32)))
+    np.testing.assert_allclose(got, color._DAYLIGHT_S, rtol=1e-6, atol=1e-5)
+
+
+def test_daylight_components_interpolate_between_nodes():
+    from ice_halo_sim_jax.core import color
+
+    s = np.asarray(color._DAYLIGHT_S, np.float64)
+    n = s.shape[1]
+    wl = (color._DAYLIGHT_WL_MIN + color._DAYLIGHT_WL_STEP * np.arange(n - 1)
+          + 0.25 * color._DAYLIGHT_WL_STEP)
+    got = np.asarray(color.daylight_components(jnp.asarray(wl, jnp.float32)))
+    want = 0.75 * s[:, :-1] + 0.25 * s[:, 1:]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)

@@ -10,9 +10,9 @@ import math
 
 import pytest
 
-from ice_halo_sim_tpu.config import load_project, load_project_file
-from ice_halo_sim_tpu.config.loader import parse_axis, parse_distribution
-from ice_halo_sim_tpu.config.schema import (
+from ice_halo_sim_jax.config import load_project, load_project_file
+from ice_halo_sim_jax.config.loader import parse_axis, parse_distribution
+from ice_halo_sim_jax.config.schema import (
     ComplexFilter,
     CrystalFilter,
     DirectionFilter,

@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.engine.simulator import Engine
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.engine.simulator import Engine
 
 SMOKE_CFG = {
     "crystal": [
@@ -90,7 +90,7 @@ def test_22_halo_annulus(engine):
 def test_landed_weight_accounting(engine):
     """Landed weight equals the XYZ Y-sum / CMF_Y(550) and is a sane fraction
     of total rays (most exits land in the all-sky view)."""
-    from ice_halo_sim_tpu.core import color
+    from ice_halo_sim_jax.core import color
 
     landed = float(np.asarray(engine.accum[-1])[0])
     xyz = engine.raw_xyz(0)
@@ -116,7 +116,7 @@ def test_cli_renders_png(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
     out = subprocess.run(
-        [sys.executable, "-m", "ice_halo_sim_tpu.cli", str(cfg_path), "-o", str(tmp_path),
+        [sys.executable, "-m", "ice_halo_sim_jax.cli", str(cfg_path), "-o", str(tmp_path),
          "--platform", "cpu", "--batch-size", "8192"],
         capture_output=True, text=True, env=env, timeout=600,
     )
@@ -138,7 +138,7 @@ def test_cli_benchmark_contract(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
     out = subprocess.run(
-        [sys.executable, "-m", "ice_halo_sim_tpu.cli", str(cfg_path),
+        [sys.executable, "-m", "ice_halo_sim_jax.cli", str(cfg_path),
          "--benchmark", "--ray-num", "20000", "--batch-size", "4096",
          "--platform", "cpu"],
         capture_output=True, text=True, timeout=600, cwd="/root/repo",

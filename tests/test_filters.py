@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.config.schema import (
+from ice_halo_sim_jax.config.schema import (
     AxisDistribution,
     DirectionFilter,
     DistType,
@@ -21,7 +21,7 @@ from ice_halo_sim_tpu.config.schema import (
     RaypathFilter,
     Symmetry,
 )
-from ice_halo_sim_tpu.core import filters
+from ice_halo_sim_jax.core import filters
 
 
 def test_p_shift_canonicalization():
@@ -156,7 +156,7 @@ def test_direction_filter():
 
 
 def test_complex_filter_or_of_and():
-    from ice_halo_sim_tpu.config.schema import ComplexFilter, CrystalFilter
+    from ice_halo_sim_jax.config.schema import ComplexFilter, CrystalFilter
 
     all_filters = {
         1: FilterConfig(id=1, param=RaypathFilter(raypath=(3, 5)), symmetry=Symmetry.P),
@@ -178,8 +178,8 @@ def test_complex_filter_or_of_and():
 def test_engine_raypath_filter_isolates_22_halo():
     """End-to-end: filtering to P-folded path [3,5] keeps ONLY the 60-degree
     prism transits — all landed radiance sits in the 22-degree annulus."""
-    from ice_halo_sim_tpu.config.loader import load_project
-    from ice_halo_sim_tpu.engine.simulator import Engine
+    from ice_halo_sim_jax.config.loader import load_project
+    from ice_halo_sim_jax.engine.simulator import Engine
 
     cfg_doc = {
         "crystal": [
@@ -228,7 +228,7 @@ def test_prefix_soa_matches_slots_path():
     agree with the AoS reference formulation for every slot, symmetry, and
     filter kind, including dead slots and FILTER_OUT."""
     import numpy as np
-    from ice_halo_sim_tpu.config.schema import (
+    from ice_halo_sim_jax.config.schema import (
         AxisDistribution, ComplexFilter, DirectionFilter, Distribution,
         DistType, EntryExitFilter, FilterAction, FilterConfig, RaypathFilter,
         Symmetry,

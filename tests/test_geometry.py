@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.core import geometry as geo
+from ice_halo_sim_jax.core import geometry as geo
 
 
 def regular_prism(h=1.0):

@@ -27,7 +27,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ice_halo_sim_tpu.core import geometry, pyramid
+from ice_halo_sim_jax.core import geometry, pyramid
 
 DATA = np.load(os.path.join(os.path.dirname(__file__), "data", "golden_closed_form.npz"))
 
@@ -279,7 +279,7 @@ def build_pyramid_one(s):
 # The alpha >= 89 deg flat-tail pools exist in the reference to stress f32
 # cancellation at extreme wedges — the reference runs its geometry-gen in
 # double for them (geo3d.cpp:518-523). Our constructor stays f32 (the pool
-# is sampled per batch ON TPU, where f64 is emulated), so those two pools
+# is sampled per batch on the accelerator in f32), so those two pools
 # get a documented 1e-2 closedness allowance (~0.2% measured) and
 # tolerate <= 4/40 (89 deg) and <= 6/40 (89.5 deg) drifted samples (a
 # near-apex basal face or +-1-vertex dedup difference the f64
@@ -324,7 +324,7 @@ def test_pyramid_pool_topology_and_consistency(pool, topo, close_tol, drift):
 @pytest.mark.slow
 def test_pyramid_miller_topology():
     samples = DATA["kPyramidMillerSamples"]
-    from ice_halo_sim_tpu.config.schema import miller_to_alpha
+    from ice_halo_sim_jax.config.schema import miller_to_alpha
 
     au = np.asarray([miller_to_alpha(int(s[0]), int(s[1])) for s in samples])
     al = np.asarray([miller_to_alpha(int(s[2]), int(s[3])) for s in samples])

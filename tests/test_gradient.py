@@ -29,8 +29,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.engine.gradient import RenderParams, default_params, make_render_fn
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.engine.gradient import RenderParams, default_params, make_render_fn
 
 CFG = {
     "crystal": [
@@ -74,8 +74,8 @@ def cfg():
 def test_smooth_transport_gradient_matches_fd_tightly():
     """Fresnel + rotation + projection + splat with NO discrete choices:
     autodiff == centered FD to <= 1% at eps = 1e-3."""
-    from ice_halo_sim_tpu.core import projection, trace_soa
-    from ice_halo_sim_tpu.config.schema import LensParam, LensType, RenderConfig
+    from ice_halo_sim_jax.core import projection, trace_soa
+    from ice_halo_sim_jax.config.schema import LensParam, LensType, RenderConfig
 
     rcfg = load_project(CFG).renders[0]
     pplan = projection.make_proj_plan(rcfg)
@@ -290,7 +290,7 @@ def tilted_cfg():
     hard estimator's FD carries a LARGE boundary component (measured:
     hard autodiff -20 vs hard FD -144 — 86% of the height gradient is
     boundary flux). The scene that makes the gap test sharp."""
-    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_jax.config.loader import load_project
 
     return load_project({
         "crystal": [

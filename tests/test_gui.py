@@ -10,7 +10,7 @@ from tests.test_e2e import SMOKE_CFG
 
 @pytest.mark.slow
 def test_gui_serves_frames_and_commits():
-    from ice_halo_sim_tpu.gui.app import serve
+    from ice_halo_sim_jax.gui.app import serve
 
     cfg = dict(SMOKE_CFG)
     cfg["scene"] = dict(SMOKE_CFG["scene"], ray_num=20000)
@@ -62,7 +62,7 @@ def test_gui_project_roundtrip_and_crystal_mesh():
     """Project save/load + 3D crystal-preview data (the two highest-value
     reference GUI slices: src/gui/file_io.cpp save/load, crystal_renderer
     mesh preview)."""
-    from ice_halo_sim_tpu.gui.app import serve
+    from ice_halo_sim_jax.gui.app import serve
 
     cfg = dict(SMOKE_CFG)
     cfg["scene"] = dict(SMOKE_CFG["scene"], ray_num=8192)

@@ -20,7 +20,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ice_halo_sim_tpu.core import geometry, pyramid, rng, sampling
+from ice_halo_sim_jax.core import geometry, pyramid, rng, sampling
 
 DATA = np.load("tests/data/golden_closed_form.npz")
 

@@ -1,7 +1,7 @@
 """Multi-host (multi-controller) path: 2 local processes x 4 CPU devices
 with a localhost coordinator must reproduce the sequential oracle exactly.
 
-This is the no-hardware stand-in for N TPU hosts over DCN — the same
+This is the no-hardware stand-in for N GPU hosts over the network — the same
 program, coordinator wiring, global mesh, and drain reduction as real
 multi-host, minus only the physical interconnect (the reference's
 fake-backend testing discipline, doc/testing-architecture.md:264-269).
@@ -25,7 +25,7 @@ WORKER = textwrap.dedent(
     rank = int(sys.argv[1])
     port = sys.argv[2]
 
-    from ice_halo_sim_tpu.parallel.distributed import (
+    from ice_halo_sim_jax.parallel.distributed import (
         MultiHostEngine, init_multi_host)
     init_multi_host(f"localhost:{port}", 2, rank)
 
@@ -34,7 +34,7 @@ WORKER = textwrap.dedent(
     assert jax.process_count() == 2
     assert jax.device_count() == 8, jax.devices()
 
-    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_jax.config.loader import load_project
     from tests.test_e2e import SMOKE_CFG
 
     cfg = load_project(SMOKE_CFG)
@@ -96,8 +96,8 @@ def test_two_process_mesh_equals_sequential_oracle():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from ice_halo_sim_tpu.config.loader import load_project
-    from ice_halo_sim_tpu.engine.simulator import Engine
+    from ice_halo_sim_jax.config.loader import load_project
+    from ice_halo_sim_jax.engine.simulator import Engine
     from tests.test_e2e import SMOKE_CFG
 
     B = 2048

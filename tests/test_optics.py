@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.core import geometry as geo
-from ice_halo_sim_tpu.core import optics
+from ice_halo_sim_jax.core import geometry as geo
+from ice_halo_sim_jax.core import optics
 
 
 def test_ice_ior_anchors():

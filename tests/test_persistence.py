@@ -5,16 +5,16 @@ import glob
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project, load_project_file
-from ice_halo_sim_tpu.config.serialize import project_to_dict, project_to_json
-from ice_halo_sim_tpu.core.mesh import (
+from ice_halo_sim_jax.config.loader import load_project, load_project_file
+from ice_halo_sim_jax.config.serialize import project_to_dict, project_to_json
+from ice_halo_sim_jax.core.mesh import (
     crystal_mesh,
     geom_to_mesh,
     is_closed_tri_mesh,
     mesh_to_obj,
 )
-from ice_halo_sim_tpu.engine.checkpoint import load_checkpoint, save_checkpoint
-from ice_halo_sim_tpu.engine.simulator import Engine
+from ice_halo_sim_jax.engine.checkpoint import load_checkpoint, save_checkpoint
+from ice_halo_sim_jax.engine.simulator import Engine
 
 CFG = {
     "crystal": [

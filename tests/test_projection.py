@@ -9,14 +9,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.config.schema import (
+from ice_halo_sim_jax.config.schema import (
     LensParam,
     LensType,
     RenderConfig,
     ViewParam,
     VisibleRange,
 )
-from ice_halo_sim_tpu.core import projection as proj
+from ice_halo_sim_jax.core import projection as proj
 
 
 def make_cfg(lens_type, fov=90.0, res=(800, 600), view=ViewParam(), visible=VisibleRange.FULL,

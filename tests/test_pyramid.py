@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.core import geometry as geo
-from ice_halo_sim_tpu.core import pyramid as pyr
+from ice_halo_sim_jax.core import geometry as geo
+from ice_halo_sim_jax.core import pyramid as pyr
 
 
 def build(h1=0.3, h2=1.0, h3=0.3, au=28.0, al=28.0, dist=None):
@@ -150,7 +150,7 @@ def test_batched_pyramid():
 
 def test_pyramid_traces():
     """Pyramid geometry plugs straight into the trace kernel; energy behaves."""
-    from ice_halo_sim_tpu.core import sampling, trace
+    from ice_halo_sim_jax.core import sampling, trace
 
     g = build(h1=0.25, h2=1.0, h3=0.25)
     pool = trace.make_geom_pool(

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.engine.simulator import Engine
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.engine.simulator import Engine
 
 CFG = {
     "crystal": [

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.config.schema import ColorClass
-from ice_halo_sim_tpu.engine.compositor import (
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.config.schema import ColorClass
+from ice_halo_sim_jax.engine.compositor import (
     composite_color_classes,
     participating_exposure_scale,
     participating_p99,
 )
-from ice_halo_sim_tpu.engine.simulator import Engine
+from ice_halo_sim_jax.engine.simulator import Engine
 
 
 def make_engine(classes, n_batches=4):
@@ -109,7 +109,7 @@ def test_compositor_visibility_and_anchor():
     out = composite_color_classes(lanes, classes, "dominant")
     # With the bright class hidden, p99 anchors on the dim lane's own value,
     # so its pixel displays at the target-white level (~0.246 linear).
-    from ice_halo_sim_tpu.engine.compositor import TARGET_LINEAR
+    from ice_halo_sim_jax.engine.compositor import TARGET_LINEAR
     assert out[1, 1, 1] == pytest.approx(TARGET_LINEAR, rel=1e-3)
     assert out[0, 0, 0] == 0.0  # hidden class contributes nothing
     # P99 over participating lanes only.

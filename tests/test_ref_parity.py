@@ -3,8 +3,8 @@
 The oracle is the reference CLI built offline by tools/ref_oracle/build.sh
 (see doc/parity-battery.md). These tests need that binary plus real ray
 budgets, so they are opt-in: marked `heavy`, skipped unless the oracle
-binary exists. The full 12-scene battery lives in scripts/parity_ref.py and
-runs in the TPU gate (scripts/run_gates.py); this pytest pins a fast
+binary exists. The full 12-scene battery lives in scripts/parity_ref.py;
+this pytest pins a fast
 representative subset so `pytest -m heavy tests/test_ref_parity.py` is an
 actionable local check.
 

@@ -23,8 +23,8 @@ import json
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project_file
-from ice_halo_sim_tpu.engine.simulator import Engine
+from ice_halo_sim_jax.config.loader import load_project_file
+from ice_halo_sim_jax.engine.simulator import Engine
 
 CONFIG_DIR = "/root/reference/test/e2e/configs"
 
@@ -117,7 +117,7 @@ def test_22_degree_ring_anchor():
     sun and require (a) the peak ring in [21, 25] deg and (b) a >5x jump
     from theta=19 to theta=22.
     """
-    from ice_halo_sim_tpu.core import projection
+    from ice_halo_sim_jax.core import projection
 
     cfg = load_project_file(f"{CONFIG_DIR}/parhelion.json")
     eng = Engine(cfg, seed=3, batch_size=1 << 16)

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.config.schema import DistType
-from ice_halo_sim_tpu.core import rng
+from ice_halo_sim_jax.config.schema import DistType
+from ice_halo_sim_jax.core import rng
 
 
 def _pcg_hash_ref(x):

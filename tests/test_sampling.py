@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.config.schema import AxisDistribution, DistType, Distribution
-from ice_halo_sim_tpu.core import geometry as geo
-from ice_halo_sim_tpu.core import sampling as smp
-from ice_halo_sim_tpu.core.latlut import build_lat_lut
+from ice_halo_sim_jax.config.schema import AxisDistribution, DistType, Distribution
+from ice_halo_sim_jax.core import geometry as geo
+from ice_halo_sim_jax.core import sampling as smp
+from ice_halo_sim_jax.core.latlut import build_lat_lut
 
 
 def test_sun_cap_geometry():

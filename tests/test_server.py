@@ -12,8 +12,8 @@ import time
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu.engine.server import ResultFrame, Server, SimState
+from ice_halo_sim_jax.config.loader import load_project
+from ice_halo_sim_jax.engine.server import ResultFrame, Server, SimState
 
 CFG = {
     "crystal": [
@@ -147,7 +147,7 @@ CFG_COLOR = {
 
 
 def test_set_raypath_colors_display_time(server):
-    from ice_halo_sim_tpu.engine.server import ColorClassDisplay
+    from ice_halo_sim_jax.engine.server import ColorClassDisplay
 
     server.commit(CFG_COLOR)
     server.wait_idle(timeout=180)
@@ -241,7 +241,7 @@ def test_frame_ev_auto_and_landed(server):
     f = server.acquire_frame()
     assert len(f.landed) == 1 and f.landed[0] > 0
     # EV-auto: finite, clamped to [-6, 6], and consistent with the formula.
-    from ice_halo_sim_tpu.engine import ev_auto as ev
+    from ice_halo_sim_jax.engine import ev_auto as ev
     expect = ev.compute_ev_auto(ev.compute_p99_y(f.raw_xyz[0]), f.landed[0])
     assert f.ev_auto[0] == expect
     assert -6.0 <= f.ev_auto[0] <= 6.0

@@ -8,17 +8,17 @@ Reference semantics: crystal_config.hpp:184-198 (shared draw), :81-88
 import jax.numpy as jnp
 import numpy as np
 
-from ice_halo_sim_tpu.config.loader import load_project, parse_crystal
-from ice_halo_sim_tpu.config.schema import (
+from ice_halo_sim_jax.config.loader import load_project, parse_crystal
+from ice_halo_sim_jax.config.schema import (
     DistType,
     Distribution,
     canonicalize_sync_groups,
     prepare_sync_groups,
     sync_group_leaders,
 )
-from ice_halo_sim_tpu.config.serialize import crystal_to_json, project_to_dict
-from ice_halo_sim_tpu.core import rng
-from ice_halo_sim_tpu.engine.simulator import Engine, _sample_shape_scalars
+from ice_halo_sim_jax.config.serialize import crystal_to_json, project_to_dict
+from ice_halo_sim_jax.core import rng
+from ice_halo_sim_jax.engine.simulator import Engine, _sample_shape_scalars
 
 
 def _scene(crystal):
@@ -178,7 +178,7 @@ def test_no_sync_group_serializes_nothing():
 
 
 def test_commit_reuse_of_equal_partitions():
-    from ice_halo_sim_tpu.engine.server import Server
+    from ice_halo_sim_jax.engine.server import Server
 
     def scene(groups):
         return _scene({

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ice_halo_sim_tpu.core import geometry as geo
-from ice_halo_sim_tpu.core import optics, sampling, trace
+from ice_halo_sim_jax.core import geometry as geo
+from ice_halo_sim_jax.core import optics, sampling, trace
 
 
 def make_pool(h=1.0, dist=None):

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.core import geometry, optics, rng, sampling, trace, trace_soa
+from ice_halo_sim_jax.core import geometry, optics, rng, sampling, trace, trace_soa
 
 
 def _pool_single(h=1.1, dists=None):

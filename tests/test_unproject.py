@@ -9,7 +9,7 @@ test/golden-analytic/core/test_projection.cpp).
 import numpy as np
 import pytest
 
-from ice_halo_sim_tpu.config.schema import (
+from ice_halo_sim_jax.config.schema import (
     GridLineParam,
     LensParam,
     LensType,
@@ -17,8 +17,8 @@ from ice_halo_sim_tpu.config.schema import (
     ViewParam,
     VisibleRange,
 )
-from ice_halo_sim_tpu.core import projection
-from ice_halo_sim_tpu.engine.overlay import draw_overlays
+from ice_halo_sim_jax.core import projection
+from ice_halo_sim_jax.engine.overlay import draw_overlays
 
 ALL_LENSES = list(LensType)
 

@@ -3,7 +3,7 @@
 
 import os
 
-from ice_halo_sim_tpu.config.validation import (
+from ice_halo_sim_jax.config.validation import (
     ALL_LEGAL_FACES,
     CrystalKind,
     RaypathValidation,
@@ -11,7 +11,7 @@ from ice_halo_sim_tpu.config.validation import (
     parse_raypath,
     validate_raypath_text,
 )
-from ice_halo_sim_tpu.utils import env_knobs
+from ice_halo_sim_jax.utils import env_knobs
 
 
 def test_legal_faces_per_kind():
